@@ -1,10 +1,11 @@
-"""subword_tokenizers_tpu — a TPU-native subword tokenization framework.
+"""subword_tokenizers_tpu — a subword tokenization framework whose training
+and batched encoding run on an accelerator (an NVIDIA GPU) through JAX.
 
 A from-scratch JAX/XLA implementation with the full capabilities of
 phtryll/subword-tokenizers (see SURVEY.md): four tokenizer models
 (NaiveBPE, FastBPE, NaiveWP, FastWP) with bit-exact conformance to the
 reference on its golden corpora, an exact BERT-style pre-tokenization front
-end (NumPy + C++), a benchmark suite, a CLI, and data-parallel multi-chip
+end (NumPy + C++), a benchmark suite, a CLI, and data-parallel multi-GPU
 training via ``jax.sharding`` / ``shard_map``.
 
 Device code requires 64-bit integer support: importing this package

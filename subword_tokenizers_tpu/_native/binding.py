@@ -1,9 +1,10 @@
 """ctypes binding (with on-demand g++ build) for the native front-end kernel.
 
 The shared object is compiled once per source change into
-``_native/build/`` and memoized. If no C++ toolchain is available the
-import fails and callers fall back to the NumPy implementation —
-`frontend.pretokenize.split_bounds` handles the dispatch.
+``_native/build/`` and memoized. If it cannot be built or loaded (no C++
+toolchain), callers fall back to the NumPy/Python implementation:
+:func:`try_load` returns None, records the cause in :func:`load_error`
+and says so once on stderr.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import tempfile
 from typing import Optional, Tuple
 
@@ -122,6 +124,33 @@ def _load() -> ctypes.CDLL:
     _lower_table = np.ascontiguousarray(LOWER, dtype=np.uint32)
     _lib = lib
     return lib
+
+
+_load_error: Optional[str] = None
+
+
+def try_load():
+    """This module when the native library loads, else None (the caller
+    takes its NumPy/Python fallback; the first failure is reported on
+    stderr and kept in :func:`load_error`, and no later call tries the
+    build again)."""
+    global _load_error
+    if _load_error is not None:
+        return None
+    try:
+        _load()
+    except Exception as e:  # no toolchain, failed build, bad .so
+        _load_error = f"{type(e).__name__}: {e}"
+        print(f"[subword_tokenizers_tpu] native front end unavailable "
+              f"({_load_error}); using the NumPy/Python fallback",
+              file=sys.stderr)
+        return None
+    return sys.modules[__name__]
+
+
+def load_error() -> Optional[str]:
+    """Why :func:`try_load` last fell back, or None if it never did."""
+    return _load_error
 
 
 def _ptr(a: np.ndarray, ctype):

@@ -1,6 +1,6 @@
 // Native (C++) hot loop of the BERT-style pre-tokenization front end.
 //
-// This is the TPU framework's equivalent of the reference's single native
+// This is the framework's equivalent of the reference's single native
 // dependency — the HuggingFace `tokenizers` Rust crate's BertPreTokenizer
 // (reference: source/utils.py:26-29). Splitting rules:
 //   * whitespace (Unicode White_Space) separates and is removed;

@@ -104,6 +104,19 @@ def report() -> Dict[str, Dict[str, float]]:
     return _timer.report()
 
 
+def take_split() -> Dict[str, float]:
+    """Wall ms per stage since the last :func:`reset`, keyed by the name
+    after its first dot (``train.fetch_records`` -> ``fetch_records``),
+    then reset. Device time lands in whichever stage waits for the
+    device; host work is native_prep / pack_u16 / stitch."""
+    out: Dict[str, float] = {}
+    for name, v in report().items():
+        short = name.split(".", 1)[-1]
+        out[short] = round(out.get(short, 0.0) + v["total_s"] * 1e3, 1)
+    reset()
+    return out
+
+
 def report_str() -> str:
     """One-line-per-phase human summary (sorted by total time)."""
     rep = report()

@@ -29,7 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="cli.py",
         description=(
-            "Subword Tokenizers CLI (TPU-native)\n\n"
+            "Subword Tokenizers CLI (accelerator-backed)\n\n"
             "Train and/or tokenize text using various subword tokenizers.\n"
         ),
         formatter_class=MyFormatter,

@@ -33,16 +33,15 @@ def unique_words(wb: WordBatch) -> Tuple[List[str], np.ndarray, np.ndarray]:
     """
     cps = wb.cps
     ws, we = wb.word_start, wb.word_end
-    try:
-        from .._native import binding
-        inverse, uniq_idx = binding.unique_spans(cps, ws, we)
+    from .._native.binding import try_load
+    native = try_load()
+    if native is not None:
+        inverse, uniq_idx = native.unique_spans(cps, ws, we)
         words = [cps[ws[i]:we[i]].astype("<u4").tobytes()
                  .decode("utf-32-le") for i in uniq_idx]
         freqs = np.bincount(inverse,
                             minlength=len(words)).astype(np.int64)
         return words, freqs, inverse
-    except Exception:
-        pass
 
     seen: Dict[bytes, int] = {}
     words = []

@@ -79,11 +79,9 @@ def _get_native_split():
     global _native_split, _native_checked
     if not _native_checked:
         _native_checked = True
-        try:
-            from .._native import binding
-            _native_split = binding.split_bounds
-        except Exception:
-            _native_split = None
+        from .._native.binding import try_load
+        native = try_load()
+        _native_split = native.split_bounds if native is not None else None
     return _native_split
 
 

@@ -1,5 +1,5 @@
 """BPE tokenizers: NaiveBPE (training + sequential-merge encoding semantics)
-and FastBPE (rank-map greedy encoding), TPU-native.
+and FastBPE (rank-map greedy encoding), on the accelerator.
 
 Semantics are bit-compatible with the reference (source/bpe.py); the
 implementation is not a port:
@@ -98,7 +98,8 @@ class NaiveBPE(SubwordTokenizer):
         ``checkpoint_every`` merges, atomically) so an interrupted run can
         continue with ``resume=True`` — the checkpointed merges are
         replayed over the rebuilt corpus, reproducing the exact state.
-        ``progress`` shows a tqdm bar like the reference.
+        ``progress`` reports merges done on stderr, like the reference's
+        progress bar.
         """
         if not isinstance(corpus, list) or not all(
                 isinstance(example, str) for example in corpus):
@@ -141,13 +142,13 @@ class NaiveBPE(SubwordTokenizer):
             corpus_arrays.sym.shape[1] - 1, 1)
         narrow = (max_vocab + len(table) + 8 < (1 << 16)
                   and total_tokens < 2**31 and n_pos < 2**31)
-        # i32 weights whenever the total fits — with wide keys this keeps
-        # the run aggregation off the TPU-uncompilable emulated-i64 cumsum
-        # (ops/pairstats docstring).
+        # i32 weights whenever the total fits — with wide keys the run
+        # aggregation still scans i32 (ops/pairstats docstring).
         w32 = total_tokens < 2**31
         bits = 16 if narrow else 21
         if self.mesh is not None:
-            from ..parallel.train import (run_gather_cap, shard_corpus,
+            from ..parallel.train import (rows_per_device, run_gather_cap,
+                                          shard_corpus,
                                           sharded_apply_merge,
                                           sharded_bpe_select,
                                           sharded_bpe_select_compact,
@@ -155,6 +156,7 @@ class NaiveBPE(SubwordTokenizer):
             sym, freq_dev = shard_corpus(self.mesh, corpus_arrays.sym,
                                          corpus_arrays.freq)
             run_cap = run_gather_cap(n_pos // max(n_dev, 1))
+            self._shard_rows = rows_per_device(sym)
             self._sel_stats = {"proven": 0, "compact": 0, "full": 0}
             self._topk_fallbacks = 0  # steps not settled by the certificate
 
@@ -215,9 +217,8 @@ class NaiveBPE(SubwordTokenizer):
 
         pbar = None
         if self._progress:
-            from tqdm import tqdm
-            pbar = tqdm(total=max_vocab - len(self.vocab),
-                        desc="Training BPE")
+            from ..utils import Progress
+            pbar = Progress(max_vocab - len(self.vocab), "Training BPE")
 
         fused_done = False
         if self.mesh is None and not getattr(self, "_force_per_step", False):
@@ -440,8 +441,9 @@ class NaiveBPE(SubwordTokenizer):
             # every slice at the global column width (no per-slice
             # col-quantize) and the scatter+cumsum compaction saves no
             # transfer — measured 0.76x the legacy sliced path for the
-            # BPE merge-loop encoder (tools/compact_bisect.py, r4; the
-            # WP matchers are a wash on CPU and keep compact on).
+            # BPE merge-loop encoder (tools/compact_bisect.py, on the
+            # CPU; the WP matchers are a wash on CPU and keep compact
+            # on). GPU: not yet measured; compact stays on.
             return None
         inputs = self._encode_inputs(words)
         if inputs is None:
@@ -536,13 +538,8 @@ class NaiveBPE(SubwordTokenizer):
         wb = self.preprocessing_batch(corpus)
         words, _, inverse = unique_words(wb)
         S = len(corpus)
-        binding = None
-        try:
-            from .._native import binding as _b
-            _b._load()
-            binding = _b
-        except Exception:
-            binding = None
+        from .._native.binding import try_load
+        binding = try_load()
         if binding is not None:
             bounds = np.searchsorted(
                 wb.sent_id, np.arange(S + 1)).astype(np.int64)

@@ -1,5 +1,5 @@
 """WordPiece tokenizers: NaiveWP (training + greedy longest-match encoding)
-and FastWP (linear-time end-to-end trie scan), TPU-native.
+and FastWP (linear-time end-to-end trie scan), on the accelerator.
 
 Bit-compatible with the reference (source/wordpiece.py) including its
 quirks; the implementation is array/automaton based, not a port:
@@ -97,7 +97,7 @@ class NaiveWP(SubwordTokenizer):
         Keyword-only extensions mirror NaiveBPE.train: periodic atomic
         checkpoints (vocab + the internal merge log, which the reference
         does not record but which resume needs to replay corpus state)
-        and optional tqdm progress.
+        and optional stderr progress.
         """
         if not isinstance(corpus, list) or not all(
                 isinstance(example, str) for example in corpus):
@@ -127,9 +127,8 @@ class NaiveWP(SubwordTokenizer):
         # through the 128-bit-denominator divider (ops/bitmath.py) — still
         # bit-exact vs CPython's arbitrary-precision int division.
         wide_score = total_tokens >= WIDE_SCORE_MIN
-        # i32 weights whenever the total fits: with wide keys this is what
-        # keeps the run aggregation compilable on the TPU (the emulated
-        # i64 cumsum is a compile hazard; ops/pairstats docstring).
+        # i32 weights whenever the total fits: with wide keys the run
+        # aggregation still scans i32 (ops/pairstats docstring).
         w32 = total_tokens < 2**31
 
         import jax.numpy as jnp
@@ -151,7 +150,8 @@ class NaiveWP(SubwordTokenizer):
         from ..ops.train_loop import _cand_cap
 
         if self.mesh is not None:
-            from ..parallel.train import (run_gather_cap, shard_corpus,
+            from ..parallel.train import (rows_per_device, run_gather_cap,
+                                          shard_corpus,
                                           sharded_apply_merge,
                                           sharded_wp_select,
                                           sharded_wp_select_compact,
@@ -161,6 +161,7 @@ class NaiveWP(SubwordTokenizer):
             cap_local = _cand_cap(max(n_pos // max(n_dev, 1), 1))
             run_cap = run_gather_cap(n_pos // max(n_dev, 1))
             cap_global = _cand_cap(n_pos)
+            self._shard_rows = rows_per_device(sym)
             self._sel_stats = {"proven": 0, "compact": 0, "full": 0}
             self._topk_fallbacks = 0  # steps not settled by the certificate
 
@@ -224,9 +225,9 @@ class NaiveWP(SubwordTokenizer):
 
         pbar = None
         if self._progress:
-            from tqdm import tqdm
-            pbar = tqdm(total=max_vocab - len(self.vocab),
-                        desc="Training WordPiece")
+            from ..utils import Progress
+            pbar = Progress(max_vocab - len(self.vocab),
+                            "Training WordPiece")
 
         fused_done = False
         if self.mesh is None and not getattr(self, "_force_per_step", False):
@@ -463,11 +464,8 @@ class NaiveWP(SubwordTokenizer):
         wb = self.preprocessing_batch(corpus)
         words, _, inverse = unique_words(wb)
         S = len(corpus)
-        try:
-            from .._native import binding
-            binding._load()
-        except Exception:
-            binding = None
+        from .._native.binding import try_load
+        binding = try_load()
         if binding is not None:
             bounds = np.searchsorted(
                 wb.sent_id, np.arange(S + 1)).astype(np.int64)
@@ -665,7 +663,7 @@ class FastWP(NaiveWP):
         return self._tokenize_batch_chunked(corpus)
 
     def _run_e2e_packed(self, cps, slen, raw: bool = False):
-        """TPU-optimized scan (ops/wp_encode_e2e.py): packed char/node
+        """Packed scan (ops/wp_encode_e2e.py): packed char/node
         tables, one scatter per step. Used by the chunked path.
         ``raw=True`` skips host string materialization and returns
         (out_ids, out_n, out_table) for the native stitch."""
@@ -734,8 +732,7 @@ class FastWP(NaiveWP):
     def _finish_e2e(self, out, out_n, ovf, stuck, crash, out_table,
                     raw: bool = False):
         import jax
-        # One batched device->host fetch — each separate np.asarray is a
-        # full round trip on remote-dispatch backends.
+        # One batched device->host fetch instead of one per array.
         out, out_n, ovf, stuck, crash = jax.device_get(
             (out, out_n, ovf, stuck, crash))
         if bool(crash.any()):
@@ -836,14 +833,8 @@ class FastWP(NaiveWP):
         sent_start = np.zeros(S, dtype=np.int64)
         np.cumsum(lens[:-1] + 1, out=sent_start[1:])
 
-        native = None
-        try:
-            from .._native import binding
-            binding._load()
-            native = binding
-        except Exception:
-            native = None
-
+        from .._native.binding import try_load
+        native = try_load()
         if native is not None:
             # One native pass: split + content dedup (exact, memcmp-
             # verified); only unique chunks get padded and scanned.
@@ -933,10 +924,9 @@ class FastWP(NaiveWP):
                 or not isinstance(corpus, list)
                 or not all(isinstance(s, str) for s in corpus)):
             return None  # odd inputs keep the Python path's exact behavior
-        try:
-            from .._native import binding
-            binding._load()
-        except Exception:
+        from .._native.binding import try_load
+        binding = try_load()
+        if binding is None:
             return None
         with profiling.phase("encode.native_prep"):
             prep = binding.encode_prep(corpus)
@@ -967,13 +957,10 @@ class FastWP(NaiveWP):
     def _run_e2e_compact(self, mat16, uslen):
         """Compact-fetch scan: one device program over all length-sorted
         slices + on-device token-stream compaction
-        (ops/wp_encode_e2e.wp_e2e_scan_u16_fused), so the remote link
-        carries ONE put (lengths packed into the char matrix) and ONE
-        fetch (a static id-stream prefix riding with the counts) instead
-        of ~5 MB of padded i32 over dozens of calls — the link's
-        ~40-60 ms PER-CALL latency, not bandwidth, is the encode
-        bottleneck (PERF.md r3 link budget; the 85k corpus moves ~2 MB
-        total). Returns (ids i32[n], starts i64[U], counts i32[U],
+        (ops/wp_encode_e2e.wp_e2e_scan_u16_fused): ONE put (lengths
+        packed into the char matrix) and ONE fetch (a static id-stream
+        prefix riding with the counts) instead of ~5 MB of padded i32
+        over dozens of calls (see ops/fetch.py). Returns (ids i32[n], starts i64[U], counts i32[U],
         out_table), or None when a precondition fails or any row flags
         an error/hang — the caller falls back to the legacy padded path,
         which raises the exact reference-documented errors."""
@@ -988,9 +975,8 @@ class FastWP(NaiveWP):
         trie, out_table = self._trie()
         if (self.mesh is not None
                 or len(out_table.strings()) >= (1 << 16)
-                # Small batches route to the host executor, where the
-                # legacy sliced path is the right shape (no link to
-                # amortize — see core/dispatch.py).
+                # Small batches routed to the host executor take the
+                # legacy sliced path (see core/dispatch.py).
                 or scan_device(int(mat16.size)) is not None):
             return None
         n_pops = max(trie.max_pops, 1)
@@ -1018,7 +1004,7 @@ class FastWP(NaiveWP):
         sr = min(R, slice_rows_for(R))
         B = R // sr
         # One-buffer wire format: length packed into the last column, so
-        # the put is a single link call; zero rows scan to DONE.
+        # the put is a single transfer; zero rows scan to DONE.
         mat_p = np.zeros((R, Lc + 1), dtype=np.uint16)
         mat_p[pad:, :Lc] = mat16[order]
         mat_p[pad:, Lc] = uslen[order]
@@ -1121,11 +1107,8 @@ class FastWP(NaiveWP):
 
     def _scan_and_stitch(self, umat, uslen, inverse, sid, S, n_uniq):
         bounds = np.searchsorted(sid, np.arange(S + 1, dtype=sid.dtype))
-        try:
-            from .._native import binding
-            binding._load()
-        except Exception:
-            binding = None
+        from .._native.binding import try_load
+        binding = try_load()
         if binding is not None:
             # Native stitch: token-id matrix -> list-of-list-of-str in one
             # C pass (the Python object assembly below is otherwise the

@@ -7,9 +7,11 @@ tie-break (`max` over dict insertion order, source/wordpiece.py:92) is only
 reached on exact double equality, so the selection is wrong unless the
 scores are the correctly-rounded IEEE doubles.
 
-This TPU's XLA stack emulates 64-bit floats (X64 rewriting), and its f64
-divide is *not* correctly rounded (measured), so we compute the IEEE-754
-bit pattern of ``c / d`` directly with exact i64 long division. The bit
+The bit pattern of ``c / d`` is computed directly with exact i64 long
+division rather than an f64 divide: this was built for a backend whose
+emulated f64 divide was not correctly rounded, and whether XLA:GPU's
+f64 divide is correctly rounded is not yet checked, so the integer
+scorer stays the one source of truth on every backend. The bit
 pattern of a positive double is monotone in its value, so the result is a
 sortable i64 selection key.
 

@@ -165,12 +165,10 @@ def bpe_encode_stacked(sym, hkeys, hrank, hout, monotone: bool,
     """All length-sorted slices in one device program + compact output
     stream (see ops/fetch.py). sym: i32[B, S, L]. The per-slice column
     quantization of the host-sliced path is traded away (one width for
-    all slices) — the merge loop's compute is microseconds on this
-    chip while every host-sliced dispatch round-trips the remote link.
+    all slices) for one dispatch instead of one per slice.
     Returns (ids_prefix u16[nq], ids u16 dense stream, out_n i32[B*S],
     flags u8[B*S] = 0, total); the static-size prefix rides in the same
-    fetch call as the counts (the link charges per CALL — see
-    ops/fetch.fetch_compact)."""
+    fetch call as the counts (see ops/fetch.fetch_compact)."""
     from .fetch import compact_ids
 
     def one(s):

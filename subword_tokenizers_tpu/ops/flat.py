@@ -34,9 +34,7 @@ def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024,
     """Flatten a padded host tensor into (fs, wid, wgt) with tail padding.
 
     ``w32`` stores weights as i32 (valid when the total corpus weight is
-    < 2^31) — less sort traffic per step and, with wide keys, the only
-    layout whose run aggregation compiles on this TPU (see
-    ops/pairstats docstring)."""
+    < 2^31) — less sort traffic per step (see ops/pairstats docstring)."""
     mask = sym2d >= 0
     fs = sym2d[mask].astype(np.int32)
     wid = np.nonzero(mask)[0].astype(np.int32)
@@ -117,7 +115,8 @@ def skip_next(fs, wid, S: int):
     within ``S + 1`` slots (-1 / WID_PAD when none). With per-step
     left-compaction deferred, dead slots accumulate between live
     neighbours; this select chain recovers pair adjacency without a
-    gather (random gathers are the slowest op class on this TPU)."""
+    gather (chosen where random gathers were slow; unmeasured on the
+    GPU)."""
     F = fs.shape[0]
     nsym = jnp.full((F,), -1, jnp.int32)
     nwid = jnp.full((F,), WID_PAD, jnp.int32)
@@ -238,9 +237,9 @@ def flat_apply(fs, wid, wgt, a, b, new_id):
     nfs = jnp.where(keep, nfs, jnp.int32(-1))
     nwid = jnp.where(keep, wid, jnp.int32(WID_PAD))
     nwgt = jnp.where(keep, wgt, 0)
-    # Left-compact with the payloads IN the sort: a permutation sort +
-    # gathers measures ~4x slower on the TPU (corpus-sized random gathers
-    # lose to extra sort operands on this hardware).
+    # Left-compact with the payloads IN the sort rather than a permutation
+    # sort + gathers (chosen where corpus-sized gathers lost to extra sort
+    # operands; unmeasured on the GPU).
     livekey = jnp.where(keep, jnp.int32(0), jnp.int32(1))
     _, cfs, cwid, cwgt = jax.lax.sort((livekey, nfs, nwid, nwgt),
                                       num_keys=1, is_stable=True)

@@ -19,21 +19,18 @@ whole step is one fused XLA program over the padded symbol tensor:
 
 Two key widths share the code: the **i32 fast path** packs pairs as
 ``a << 16 | b`` (valid while symbol ids < 2^16 and corpus weights <
-2^31 — virtually every real training run; 64-bit integer ops are
-*emulated* on this TPU generation, so the narrow sort is several times
-faster), and the i64 path packs ``a << 21 | b`` for larger vocabularies.
+2^31 — virtually every real training run; half the sort bytes of i64
+keys), and the i64 path packs ``a << 21 | b`` for larger vocabularies.
 The trainers choose once per run from static bounds. No floating point
 touches the conformance path.
 
-TPU note on i64 scans: ``jnp.cumsum`` over i64 is emulated as a
-(u32,u32)-tuple reduce-window whose scoped-VMEM footprint fails to
-*compile* at large corpus sizes (the same mechanism as the jnp.nonzero
-hazard documented at :func:`compact_cands`). The weight dtype is therefore
-decoupled from the key dtype: whenever the total corpus weight fits i32
-(``w32=True`` — any corpus under 2^31 occurrences), the cumsum/cummin run
-in i32 even when symbol ids need i64 keys, so ≥2^16-symbol training
-compiles and runs on the TPU. Only corpora with ≥2^31 total occurrences
-still need the emulated-i64 scan (CPU backend).
+The weight dtype is decoupled from the key dtype: whenever the total
+corpus weight fits i32 (``w32=True`` — any corpus under 2^31
+occurrences), the cumsum/cummin run in i32 even when symbol ids need i64
+keys. This was chosen for a backend whose emulated i64 scans failed to
+compile at corpus sizes; whether the narrow scan still pays on the GPU
+is unmeasured. Only corpora with ≥2^31 total occurrences use an i64
+scan.
 """
 from __future__ import annotations
 
@@ -68,7 +65,7 @@ def _consts(narrow: bool):
 
 def _wdtype(narrow: bool, w32: bool):
     """Weight dtype: i32 whenever the total corpus weight fits (see module
-    docstring — the emulated i64 cumsum is a TPU compile hazard)."""
+    docstring)."""
     return jnp.int32 if (narrow or w32) else jnp.int64
 
 
@@ -98,13 +95,12 @@ def _run_aggregate(keys, pos, w, narrow: bool, w_by_pos: bool = False):
     position, and ``is_cand`` marks run starts of real (non-sentinel) keys.
 
     ``w_by_pos=True`` routes the weights *around* the sort via a gather
-    by sorted position. Measured SLOWER on the TPU (a corpus-sized random
-    gather costs ~4x the extra sort operand — sorts are fast here,
-    scattered gathers are not); kept only as a documented dead end.
+    by sorted position. It lost to the extra sort operand on the backend
+    this was built on (sorts fast, corpus-sized gathers slow); unmeasured
+    on the GPU.
 
     The run aggregation (cumsum/cummin) runs in ``w``'s dtype — callers
-    pass i32 weights whenever the total corpus weight fits (the emulated
-    i64 scan does not compile at corpus sizes on this TPU; see module
+    pass i32 weights whenever the total corpus weight fits (see module
     docstring).
     """
     _, _, _, sentinel, _ = _consts(narrow)
@@ -164,8 +160,7 @@ def compact_cands(k_s, p_s, run_total, is_cand, cap: int, narrow: bool):
 
     Distinct pairs are typically ~100x fewer than positions, so compacting
     before the expensive exact-double scoring removes its dominant cost
-    (the emulated-i64 long division runs per *candidate*, not per
-    position). Returns (ck, cp, cc, cmask, ovf): keys, first-seen
+    (the i64 long division runs per *candidate*, not per position). Returns (ck, cp, cc, cmask, ovf): keys, first-seen
     positions, counts, validity mask, and a scalar bool set when more than
     ``cap`` candidates exist — the compacted view is then incomplete and
     callers MUST fall back to the full-width arrays.
@@ -177,12 +172,10 @@ def compact_cands(k_s, p_s, run_total, is_cand, cap: int, narrow: bool):
     # layer); clamp so the static slice below matches the mask shape.
     cap = min(cap, k_s.shape[0])
     # Compaction by one more sort: candidates float to the front, then a
-    # static slice takes the first ``cap``. Sorts are fast on this TPU;
-    # the two alternatives both lose — jnp.nonzero hides an int64 cumsum
-    # (emulated as a (u32,u32) reduce-window that fails to compile at
-    # corpus sizes: scoped-VMEM OOM), and an i32 cumsum + corpus-sized
-    # scatter prices the scatter (random-access writes are the slowest op
-    # class here). Non-candidates are folded into the sentinel key (one
+    # static slice takes the first ``cap``. The alternatives (jnp.nonzero,
+    # or an i32 cumsum + corpus-sized scatter) lost on the backend this was
+    # built on, where sorts were fast and scatters slow; unmeasured on the
+    # GPU. Non-candidates are folded into the sentinel key (one
     # 3-operand unstable sort, not the 4-operand stable flag sort it used
     # to be): downstream selection is by (score bits, min position) and
     # positions are unique across runs, so the order of candidates within

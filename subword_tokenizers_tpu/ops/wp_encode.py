@@ -279,8 +279,7 @@ def wp_e2e_encode(acp, is_space, is_punc, slen, goto_table, fail,
 def wp_match_encode_stacked(words, wlen, goto_table, accept, hash_aid,
                             nq: int = 0):
     """All length-sorted slices in one device program + compact output
-    stream (see ops/fetch.py — the remote link's per-call latency and
-    bandwidth, not the matcher, bound this encode).
+    stream (see ops/fetch.py).
 
     words: i32[B, S, L]; wlen: i32[B, S]. UNK substitution happens ON
     DEVICE (out[0] = 0 == the UNK id interned first by

@@ -79,8 +79,8 @@ def _local_pairs(sym, freq, narrow: bool = False, w32: bool = False):
     """Local (keys, global_pos, weights) with shard-offset positions.
 
     Weights take :func:`~..ops.pairstats._wdtype` — i32 whenever the total
-    corpus weight fits, which keeps the downstream run aggregation off the
-    TPU-uncompilable emulated-i64 cumsum even with wide keys."""
+    corpus weight fits, so the downstream run aggregation scans i32 even
+    with wide keys (ops/pairstats docstring)."""
     dt, bits, _, sentinel, _ = _consts(narrow)
     n, L = sym.shape
     a = sym[:, :-1].astype(dt)
@@ -437,3 +437,9 @@ def shard_corpus(mesh, sym, freq):
     sharding = NamedSharding(mesh, P(DATA_AXIS))
     return (jax.device_put(jnp.asarray(sym), sharding),
             jax.device_put(jnp.asarray(freq), sharding))
+
+
+def rows_per_device(arr) -> dict:
+    """Rows of a row-sharded array held by each device, by device name."""
+    return {str(s.device): int(s.data.shape[0])
+            for s in arr.addressable_shards}

@@ -2,7 +2,30 @@
 from __future__ import annotations
 
 import re
+import sys
 from typing import List
+
+
+class Progress:
+    """Training progress as one stderr line, rewritten in place: the
+    reference's progress bar without a dependency."""
+
+    def __init__(self, total: int, desc: str) -> None:
+        self.total = max(int(total), 0)
+        self.desc = desc
+        self.done = 0
+        self._show()
+
+    def _show(self) -> None:
+        print(f"\r{self.desc}: {self.done}/{self.total}", end="",
+              file=sys.stderr, flush=True)
+
+    def update(self, n: int = 1) -> None:
+        self.done += n
+        self._show()
+
+    def close(self) -> None:
+        print(file=sys.stderr, flush=True)
 
 # Best-effort detokenizer. Whitespace is not recoverable from a token
 # stream; this mirrors the reference's common-sense punctuation handling

@@ -96,7 +96,7 @@ def test_matcher_compact_is_production_and_exact(model, res, pan_tadeusz,
     # The BPE merge-loop compact path is gated to non-CPU backends
     # (tools/compact_bisect.py: 0.76x on the local CPU); force it on so
     # its semantics are exercised under the test CPU backend the way the
-    # TPU backend runs it in production.
+    # GPU backend runs it.
     monkeypatch.setenv("SWT_COMPACT", "1")
     cls = getattr(swt, model)
     tok = cls()

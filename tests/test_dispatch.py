@@ -1,9 +1,9 @@
-"""Latency-aware CPU dispatch for small encode batches (core/dispatch.py).
+"""Optional CPU routing for small encode batches (core/dispatch.py).
 
-The real decision only fires on an accelerator backend; here the
-accelerator is simulated by monkeypatching ``jax.default_backend`` so the
-routing branch executes (on the CPU device it selects) and its output can
-be diffed against the default path.
+The real decision only fires on an accelerator backend; here the GPU is
+simulated by monkeypatching ``jax.default_backend`` so the routing branch
+executes (on the CPU device it selects) and its output can be diffed
+against the default path.
 """
 import jax
 import pytest
@@ -14,20 +14,25 @@ from subword_tokenizers_tpu.core import dispatch
 def test_scan_device_logic(monkeypatch):
     # On the CPU backend the default placement is already right.
     assert dispatch.scan_device(10) is None
+    assert dispatch.scan_device(10, threshold=11) is None
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # r3 default: small batches (per-sentence latency regime) go to the
-    # host; corpus-scale batches stay on the chip (see module docstring).
-    dev = dispatch.scan_device(10)
-    assert dev is not None and dev.platform == "cpu"
-    assert dispatch.scan_device(1 << 20) is None
-    # An explicit mesh pins the sharded path.
-    assert dispatch.scan_device(10, mesh=object()) is None
-    # Large workloads stay on the accelerator.
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    # Default: routing off — every batch, however small, stays on the GPU.
+    assert dispatch.CPU_DISPATCH_SLOTS == 0
+    assert dispatch.scan_device(10) is None
     assert dispatch.scan_device(1 << 30) is None
+    # A threshold routes scans below it to the host CPU device.
+    dev = dispatch.scan_device(10, threshold=11)
+    assert dev is not None and dev.platform == "cpu"
+    assert dispatch.scan_device(11, threshold=11) is None
+    # An explicit mesh pins the sharded path.
+    assert dispatch.scan_device(10, mesh=object(), threshold=11) is None
+    # The module knob is the same threshold.
+    monkeypatch.setattr(dispatch, "CPU_DISPATCH_SLOTS", 1 << 19)
+    assert dispatch.scan_device(10) is not None
+    assert dispatch.scan_device(1 << 20) is None
     # threshold == 0 disables routing.
     assert dispatch.scan_device(10, threshold=0) is None
-    assert dispatch.scan_device(10, threshold=11) is not None
 
 
 def test_device_cache_per_device():
@@ -63,7 +68,7 @@ def test_dispatched_encode_bit_exact(monkeypatch, model, pan_tadeusz,
     tok.load_resources(
         f"/root/reference/resources/pretrained/{names[model]}")
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     monkeypatch.setattr(dispatch, "CPU_DISPATCH_SLOTS", 1 << 22)
     assert dispatch.scan_device(100) is not None  # routing active
     out = tok.tokenize_batch(corpus)
@@ -91,6 +96,7 @@ def test_tokenize_batch_fallback_assembly(monkeypatch, pan_tadeusz,
         # Simulate a toolchain-less host: every native entry point gone,
         # including the front end's cached probe.
         monkeypatch.setattr(binding, "_load", boom)
+        monkeypatch.setattr(binding, "_load_error", None)
         monkeypatch.setattr(pretokenize, "_native_checked", True)
         monkeypatch.setattr(pretokenize, "_native_split", None)
         assert tok.tokenize_batch(corpus) == want

@@ -1,12 +1,13 @@
 """Driver entry points: compile-check entry() and run the multichip
 dryrun on the virtual device mesh."""
+import os
 import sys
 
 import jax
 import pytest
 
-
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 
 def test_entry_compiles_and_runs():
@@ -21,4 +22,6 @@ def test_dryrun_multichip():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 (virtual) devices")
     import __graft_entry__ as g
-    g.dryrun_multichip(8)
+    summary = g.dryrun_multichip(8)
+    assert len(summary["corpus_rows_per_device"]) == 8
+    assert summary["bpe_tiers"]["proven"] > 0

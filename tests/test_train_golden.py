@@ -115,7 +115,7 @@ def test_bpe_85k_anchor_prefix():
     our trainer's first merges on the same corpus must reproduce it.
     A short vocab suffices (greedy training is deterministic, so our
     merges here are a prefix of any deeper run's); the full 500-merge
-    prefix is asserted on TPU by tools/scale_bench.py."""
+    prefix is asserted on the GPU by chip_smoke.py."""
     import glob
     import json
     import os
@@ -130,7 +130,7 @@ def test_bpe_85k_anchor_prefix():
         corpus = json.load(f)
     from subword_tokenizers_tpu import NaiveBPE
     tok = NaiveBPE()
-    n = 60  # ~2 min on the 2-core CPU backend; full depth on TPU
+    n = 60  # full depth runs on the GPU in chip_smoke.py
     tok.train(corpus, max_vocab=578 - 500 + n)
     got = [tuple(p) for p in tok.merges_list]
     assert len(got) == n

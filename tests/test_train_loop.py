@@ -72,10 +72,9 @@ def test_hashes_roundtrip():
 
 
 def test_no_i64_cumsum_in_narrow_wp_step():
-    """The narrow-path WP training step must not contain an int64 cumsum:
-    this TPU emulates 64-bit scans as (u32,u32)-tuple reduce-windows whose
-    scoped-VMEM footprint fails to compile at corpus sizes (jnp.nonzero
-    under x64 sneaks one in via its internal index cumsum)."""
+    """The narrow-path WP training step must not contain an int64 cumsum
+    (the narrow path scans i32 by design; jnp.nonzero under x64 would
+    sneak an i64 one in via its internal index cumsum)."""
     import jax
     import jax.numpy as jnp
     from subword_tokenizers_tpu.ops.pairstats import wp_select
@@ -168,9 +167,8 @@ def test_flat_shrink_bit_exact(monkeypatch):
 
 def test_no_i64_scan_in_wide_w32_step():
     """Wide keys (>=2^16 symbol ids) with i32 weights: the run aggregation
-    must contain no int64 scan ops, so >=2^16-symbol training compiles on
-    the TPU (VERDICT r2 missing #2 / next #6). The i64 sort is fine; the
-    emulated i64 cumsum/cummin is not."""
+    must contain no int64 scan ops (the weight dtype is decoupled from
+    the key dtype; ops/pairstats docstring). The i64 sort is fine."""
     import jax
     import jax.numpy as jnp
     from subword_tokenizers_tpu.ops.pairstats import wp_select

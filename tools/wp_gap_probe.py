@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time NaiveBPE vs NaiveWP train-5K@1000 warm (golden-gated).
 
-Measures VERDICT r3 ask #8's done condition: TPU-warm WP train within
-15% of BPE. Run with `env -u JAX_PLATFORMS` for the TPU backend.
+Measures the WP/BPE warm training-wall gap (the target was WP within
+15% of BPE) on the default backend.
 """
 import json
 import os
